@@ -5,7 +5,7 @@
 
 PY ?= python
 
-.PHONY: ext test memcheck bench check check-tpu docs
+.PHONY: ext test memcheck bench check chip-smoke docs
 
 ext:
 	$(PY) setup.py build_ext --inplace
@@ -22,10 +22,11 @@ bench: ext
 check: test memcheck
 	@echo "check OK"
 
-# On-silicon gate: full CLI through the Pallas kernel on the real
-# backend, byte-compared vs the C++ baseline (run on a TPU host).
-check-tpu: ext
-	./scripts/check_tpu.sh
+# On-card gate (needs an NVIDIA GPU): every device route of the CLI at
+# full size, byte-compared vs the C++ baseline (builds the extensions
+# itself).  `python chip_smoke.py --four` runs the 4-card paths.
+chip-smoke:
+	$(PY) chip_smoke.py
 
 # The reference regenerates docs/cli.rst by running `./humid -h`
 # (src/Makefile:49-50); same idea here.

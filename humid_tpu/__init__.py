@@ -1,31 +1,14 @@
-"""humid_tpu — TPU-native reference-free FastQ deduplication.
+"""humid_tpu — reference-free FastQ deduplication on an accelerator.
 
-A from-scratch rebuild of the capabilities of jfjlaros/HUMID
-(/root/reference) designed for TPU hardware: 2-bit packed integer
-fingerprints, batched XOR+popcount / one-hot-MXU distance kernels,
-iterative label-propagation clustering, and data-parallel sharding over
-device meshes.  See SURVEY.md for the behavioural contract.
+A from-scratch rebuild of the capabilities of jfjlaros/HUMID in JAX:
+2-bit packed integer fingerprints, batched XOR+popcount / one-hot
+matmul distance tiles, iterative label-propagation clustering, and
+data-parallel sharding over device meshes.  See SURVEY.md for the
+behavioural contract.
 """
 
-import os as _os
-
-# Persistent XLA compilation cache: kernel compiles (tens of seconds on a
-# remote-compile TPU backend) are paid once per program shape, not once
-# per process.  Opt out with HUMID_TPU_NO_COMPILE_CACHE=1.
-if not _os.environ.get("HUMID_TPU_NO_COMPILE_CACHE"):
-    _os.environ.setdefault(
-        "JAX_COMPILATION_CACHE_DIR",
-        _os.path.join(
-            _os.environ.get("XDG_CACHE_HOME", _os.path.expanduser("~/.cache")),
-            "humid_tpu", "jax_cache",
-        ),
-    )
-    _os.environ.setdefault(
-        "JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1"
-    )
-
-from ._util import tune_malloc  # noqa: E402,F401
-from .pipeline import run, PipelineResult  # noqa: E402
+from ._util import tune_malloc  # noqa: F401
+from .pipeline import run, PipelineResult
 
 __version__ = "0.1.0"
 

@@ -1,23 +1,20 @@
 """Backend engine profiling + calibration: should hot phases run on-device?
 
-Two layers decide the production route (VERDICT r2 #2):
+Two layers decide the production route:
 
-1. ``backend_profile()`` — probe the jax backend ONCE per process:
-   platform plus measured dispatch round-trip latency.  A TPU is
-   "co-located" when dispatch beats HUMID_TPU_DISPATCH_THRESHOLD_MS
-   (chip on this host's PCIe, not a network tunnel).
-2. ``engine_constants()`` / ``use_device_engine()`` — co-location makes
-   the device engines *eligible*, not chosen: the host and device
-   engines are both linear in input size, so a one-time measurement of
-   each engine's per-row cost on THIS machine (disk-cached per device
-   kind + core count) decides the route.  The decision is measurement,
-   not an env var or a latency proxy.
+1. ``backend_profile()`` — which JAX backend this process runs on.  A
+   local GPU is "co-located": its device engines are eligible.  The CPU
+   backend is host-routed (the documented CPU mode).
+2. ``engine_constants()`` / ``use_device_engine()`` — eligibility is not
+   a choice: the host and device engines are both linear in input size,
+   so a one-time measurement of each engine's per-row cost on THIS
+   machine (disk-cached per device kind + core count) decides the
+   route.
 
 Env overrides:
 
   HUMID_TPU_DEVICE_ENGINE=1|device|on   force the device engines
   HUMID_TPU_DEVICE_ENGINE=0|host|off    force the host engines
-  HUMID_TPU_DISPATCH_THRESHOLD_MS       co-location latency bound (2.0)
   HUMID_TPU_CALIBRATION=off             skip calibration (co-location
                                         alone then opts in)
   HUMID_TPU_RECALIBRATE=1               re-measure, ignore the cache
@@ -33,72 +30,58 @@ _PROFILE: dict | None = None
 
 
 def backend_profile(refresh: bool = False) -> dict:
-    """Cached probe: {"backend", "dispatch_s", "colocated_device"}.
+    """Cached probe: {"backend", "colocated_device", "forced"}.
 
-    ``colocated_device`` is True when the default backend is a TPU whose
-    measured dispatch round-trip beats HUMID_TPU_DISPATCH_THRESHOLD_MS
-    (default 2 ms) — i.e. the chip sits on this host's PCIe/ICI, not at
-    the far end of a network tunnel.  The probe costs one tiny jit
-    compile + 5 dispatches, paid once per process.
+    ``colocated_device`` is True on a local GPU backend, False on the
+    CPU backend; HUMID_TPU_DEVICE_ENGINE forces either answer.
     """
     global _PROFILE
     if _PROFILE is not None and not refresh:
         return _PROFILE
 
-    forced_env = os.environ.get("HUMID_TPU_DEVICE_ENGINE", "").lower()
-    forced: bool | None = None
     import jax
 
+    forced_env = os.environ.get("HUMID_TPU_DEVICE_ENGINE", "").lower()
+    forced: bool | None = None
     backend = jax.default_backend()
-    dispatch_s: float | None = None
     if forced_env in ("1", "device", "on"):
         colocated = forced = True
     elif forced_env in ("0", "host", "off"):
         colocated = forced = False
-    elif backend == "tpu":
-        import jax.numpy as jnp
-
-        f = jax.jit(lambda v: (v + 1).sum())
-        x = jnp.zeros(128, jnp.int32)
-        f(x).block_until_ready()  # compile outside the timed loop
-        n = 5
-        t0 = time.perf_counter()
-        for _ in range(n):
-            f(x).block_until_ready()
-        dispatch_s = (time.perf_counter() - t0) / n
-        thresh_s = float(
-            os.environ.get("HUMID_TPU_DISPATCH_THRESHOLD_MS", "2.0")) / 1e3
-        colocated = dispatch_s < thresh_s
     else:
-        colocated = False
+        colocated = backend == "gpu"
     _PROFILE = {
         "backend": backend,
-        "dispatch_s": dispatch_s,
         "colocated_device": colocated,
         "forced": forced,
     }
     return _PROFILE
 
 
+def describe_device() -> str:
+    """``<backend> <device_kind> x<local device count>``: the machine a
+    run's device phases use, for logs and benchmark lines."""
+    import jax
+
+    return (f"{jax.default_backend()} {jax.devices()[0].device_kind} "
+            f"x{len(jax.local_devices())}")
+
+
 # ---------------------------------------------------------------------------
 # Engine calibration: measure, don't guess.
 #
-# Dispatch latency alone is not evidence that the device engines are
-# faster: on this project's own measurements (scripts/engine_xover.py,
-# TPU v5e, 4-core host) the host pigeonhole runs engine holds ~105
-# ns/unique FLAT across 0.18M-2.9M uniques while the device bucketed
-# MXU scan holds ~2000 ns/unique — the merge join is algorithmically
-# leaner than brute tile scans, and both are linear, so a single
-# measured constant per engine decides the route for every size.  The
-# constants are measured once per (device kind, host core count) on
-# first qualifying use and cached on disk, so a machine where the chip
-# DOES win (weak host, strong local chip) routes itself to the device
-# engines automatically — the decision is measurement, not env vars.
+# Having a device is not evidence that the device engines are faster:
+# the host pigeonhole merge join is algorithmically leaner than brute
+# tile scans, so which side wins depends on the card and the host's
+# cores.  Both sides are linear, so a single measured constant per
+# engine decides the route for every size.  The constants are measured
+# once per (device kind, host core count) on first qualifying use and
+# cached on disk — the decision is measurement, not env vars.
 # ---------------------------------------------------------------------------
 
 #: bump when an engine's cost profile changes materially (invalidates
 #: cached calibrations).
-_CALIB_VERSION = 4
+_CALIB_VERSION = 5
 
 _CALIB: dict | None = None
 
@@ -139,8 +122,7 @@ def _gen_probe_words(n: int, word_length: int = 24, seed: int = 0):
 
 def _measure_engines() -> dict:
     """Time host vs device engines on small representative workloads.
-    Best-of-N per engine (the hosts this runs on show 3-10x hypervisor
-    steal on single samples); the per-sample spread is recorded so
+    Best-of-N per engine; the per-sample spread is recorded so
     use_device_engine can tell a real margin from measurement noise."""
     import sys
 
@@ -175,7 +157,7 @@ def _measure_engines() -> dict:
     t_nr = best(lambda: find_neighbor_pairs(
         uniq, 1, strategy="runs", word_length=wl))
     t_nd = best(lambda: find_neighbor_pairs(
-        uniq, 1, strategy="bucketed", impl="pallas", word_length=wl))
+        uniq, 1, strategy="bucketed", word_length=wl))
     t_nrd = best(lambda: find_neighbor_pairs(
         uniq, 1, strategy="runs_device", word_length=wl))
     # Mesh engine: only meaningful with >1 co-located chip (on a single
@@ -192,13 +174,6 @@ def _measure_engines() -> dict:
     if len(jax.local_devices()) > 1 and jax.process_count() == 1:
         t_ns = best(lambda: find_neighbor_pairs(
             uniq, 1, strategy="sharded_bucketed", word_length=wl))
-    # Pallas RDMA ring engine: a real-hardware kernel (interpret mode
-    # on CPU would take minutes on the probe's dense scan), single
-    # process for the same collective-deadlock reason as the mesh row.
-    t_npr = None
-    if jax.default_backend() == "tpu" and jax.process_count() == 1:
-        t_npr = best(lambda: find_neighbor_pairs(
-            uniq, 1, strategy="pallas_ring", word_length=wl))
 
     # -x clustering: host exact flood fill vs device label propagation
     # + bit-exact host finalize (the production device route in
@@ -230,8 +205,6 @@ def _measure_engines() -> dict:
         "neighbors_runs_device_ns": round(t_nrd / u * 1e9, 2),
         **({"neighbors_sharded_ns": round(t_ns / u * 1e9, 2)}
            if t_ns is not None else {}),
-        **({"neighbors_pallas_ring_ns": round(t_npr / u * 1e9, 2)}
-           if t_npr is not None else {}),
         "cc_host_ns": round(t_ch / u * 1e9, 2),
         "cc_device_ns": round(t_cd / u * 1e9, 2),
         "pipeline_fused_ns": round(t_fp / len(packed) * 1e9, 2),
@@ -245,7 +218,7 @@ def _measure_engines() -> dict:
 
 def engine_constants(refresh: bool = False) -> dict | None:
     """Measured engine cost constants for this machine (disk-cached per
-    device kind + core count), or None off-TPU / when disabled via
+    device kind + core count), or None when disabled via
     HUMID_TPU_CALIBRATION=off.  HUMID_TPU_RECALIBRATE=1 forces a fresh
     measurement."""
     global _CALIB
@@ -300,28 +273,18 @@ def _save_calib(entry: dict) -> None:
 #: find_neighbor_pairs strategy name; values are calibration keys.
 _NEIGHBOR_ENGINES = {
     "runs": "neighbors_runs_ns",                    # host
-    "bucketed": "neighbors_bucketed_ns",            # device MXU tiles
+    "bucketed": "neighbors_bucketed_ns",            # device tile scan
     "runs_device": "neighbors_runs_device_ns",      # device run sweeps
-    "sharded_bucketed": "neighbors_sharded_ns",     # local chip mesh
-    "pallas_ring": "neighbors_pallas_ring_ns",      # RDMA ring kernel
+    "sharded_bucketed": "neighbors_sharded_ns",     # local device mesh
 }
 
 #: engines that honor find_neighbor_pairs' host ``shard`` partition
 #: (the mesh engines search their full local slice instead).
 _SHARDABLE_ENGINES = {"runs", "bucketed", "runs_device"}
 
-#: engines whose per-unique cost is ~flat in table size — the premise
-#: of routing on one calibrated constant.  pallas_ring is deliberately
-#: absent: its dense O(u^2) cost would extrapolate a small-probe win
-#: into a large-table disaster, so it is reached via the dense route's
-#: measured auto-upgrade (ops/neighbors.py) and explicit strategy, not
-#: the flat-constant pick.
-_LINEAR_ENGINES = {"runs", "bucketed", "runs_device", "sharded_bucketed"}
-
-
 def _noise_guarded(c: dict, ks: list[str]) -> dict:
-    """Noise guard: on a host with 3-10x hypervisor steal, a single
-    skewed calibration window could permanently pin the route.  When the
+    """Noise guard: a single skewed calibration window (a busy host)
+    could permanently pin the route.  When the
     best two engines' margin is within the measured per-sample spread
     AND the cached measurement is stale, re-measure once."""
     vals = sorted(float(c[k]) for k in ks if k in c)
@@ -376,15 +339,11 @@ def pick_neighbor_engine(shardable_only: bool = False) -> str:
                                 "neighbors_bucketed_ns",
                                 "neighbors_runs_device_ns")):
         c = engine_constants(refresh=True)  # stale cache: re-measure
-    # Noise-guard margins compare only the PICKABLE (linear) engines:
-    # the ring's dense-scale constant would fake a clear winner and
-    # suppress the refresh the guard exists for.
-    keys = [k for s, k in _NEIGHBOR_ENGINES.items()
-            if k in c and s in _LINEAR_ENGINES]
+    keys = [k for k in _NEIGHBOR_ENGINES.values() if k in c]
     c = _noise_guarded(c, keys)
     host = float(c["neighbors_runs_ns"])
     dev_engines = {s: float(c[k]) for s, k in _NEIGHBOR_ENGINES.items()
-                   if s != "runs" and k in c and s in _LINEAR_ENGINES
+                   if s != "runs" and k in c
                    and not (shardable_only
                             and s not in _SHARDABLE_ENGINES)}
     best_dev = min(dev_engines, key=dev_engines.get)
@@ -452,11 +411,8 @@ def use_fused_pipeline() -> bool:
     ratio = float(c["probe_u"]) / max(float(c["probe_n"]), 1.0)
     best_unique = min(float(c["unique_host_ns"]),
                       float(c.get("unique_device_ns", float("inf"))))
-    # The phase-wise alternative can only be an engine the router can
-    # actually PICK for production tables (linear-constant engines) —
-    # the ring's small-probe dense constant must not set the bar.
-    best_nb = min(float(c[k]) for s, k in _NEIGHBOR_ENGINES.items()
-                  if k in c and s in _LINEAR_ENGINES)
+    best_nb = min(float(c[k]) for k in _NEIGHBOR_ENGINES.values()
+                  if k in c)
     alt = best_unique + best_nb * ratio
     return float(c["pipeline_fused_ns"]) < 0.9 * alt
 

@@ -7,6 +7,28 @@ import os
 
 _malloc_tuned = False
 
+#: Persistent XLA compilation cache of this checkout, used when
+#: JAX_COMPILATION_CACHE_DIR is not set.  A fixed path: the directory is
+#: part of the cache key, so one that moved between runs would never hit.
+COMPILE_CACHE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    ".jax_cache")
+
+
+def configure_compile_cache() -> str:
+    """Point JAX's persistent compilation cache at its directory and
+    return that directory: JAX_COMPILATION_CACHE_DIR when set (JAX reads
+    it itself, nothing else is configured), else COMPILE_CACHE_DIR.
+    Called by every entry point (CLI, bench, chip smoke) before the
+    first compile."""
+    env = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if env:
+        return env
+    import jax
+
+    jax.config.update("jax_compilation_cache_dir", COMPILE_CACHE_DIR)
+    return COMPILE_CACHE_DIR
+
 
 def tune_malloc() -> None:
     """Keep freed large buffers on the malloc heap instead of returning
@@ -34,6 +56,24 @@ def tune_malloc() -> None:
         libc.mallopt(M_TRIM_THRESHOLD, 0x7FFFFFFF)
     except (OSError, AttributeError):  # pragma: no cover - non-glibc
         pass
+
+
+def nvidia_smi_line() -> str | None:
+    """The first card's ``name, power.limit`` as nvidia-smi reports them
+    (None where nvidia-smi is absent or fails).  A card set below its
+    maximum power limit runs slower under load, so every device number
+    is reported beside it."""
+    import subprocess
+
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = r.stdout.strip().splitlines()
+    return lines[0].strip() if r.returncode == 0 and lines else None
 
 
 def avail_bytes(default: int = 1 << 33) -> int:

@@ -15,7 +15,6 @@ output OFF — replicated here with store_false.
 from __future__ import annotations
 
 import argparse
-import os
 import sys
 import zlib
 
@@ -62,19 +61,13 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
-    args = build_parser().parse_args(argv)
-    # Some TPU platform plugins ignore the JAX_PLATFORMS environment
-    # variable; enforce the documented `JAX_PLATFORMS=cpu humid-tpu ...`
-    # escape hatch (only for cpu — anything else is the plugin's call,
-    # and overriding an already-configured backend would break it).
-    if os.environ.get("JAX_PLATFORMS", "").lower() == "cpu":
-        import jax
+def execute(args: argparse.Namespace):
+    """Run the pipeline for parsed CLI ``args``: the single-host
+    :class:`~humid_tpu.pipeline.PipelineResult`, or None for a
+    multi-host run."""
+    from ._util import configure_compile_cache
 
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:
-            pass
+    configure_compile_cache()
     multihost = args.coordinator is not None or (
         args.num_processes or 0) > 1
     if multihost:
@@ -94,27 +87,7 @@ def main(argv: list[str] | None = None) -> int:
             # a coordinator with no --num-processes and no auto-detect
             # env): a user diagnostic, not a traceback.
             build_parser().error(str(exc))
-        try:
-            run_distributed(
-                args.files,
-                word_length=args.n,
-                distance=args.m,
-                log_name=args.l,
-                dir_name=args.d,
-                run_stats=args.s,
-                write_dedup=args.q,
-                write_annotated=args.a,
-                edit=args.e,
-                maximum=args.x,
-                process_id=args.process_id,
-                num_processes=args.num_processes,
-            )
-        except _INPUT_ERRORS as exc:
-            print(f"humid-tpu: error: {exc}", file=sys.stderr)
-            return 1
-        return 0
-    try:
-        run(
+        run_distributed(
             args.files,
             word_length=args.n,
             distance=args.m,
@@ -125,7 +98,28 @@ def main(argv: list[str] | None = None) -> int:
             write_annotated=args.a,
             edit=args.e,
             maximum=args.x,
+            process_id=args.process_id,
+            num_processes=args.num_processes,
         )
+        return None
+    return run(
+        args.files,
+        word_length=args.n,
+        distance=args.m,
+        log_name=args.l,
+        dir_name=args.d,
+        run_stats=args.s,
+        write_dedup=args.q,
+        write_annotated=args.a,
+        edit=args.e,
+        maximum=args.x,
+    )
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        execute(args)
     except _INPUT_ERRORS as exc:
         print(f"humid-tpu: error: {exc}", file=sys.stderr)
         return 1

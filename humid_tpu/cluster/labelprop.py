@@ -1,6 +1,6 @@
 """Device connected components via iterative min-label propagation.
 
-TPU-native replacement for the reference's recursive flood fill
+Data-parallel replacement for the reference's recursive flood fill
 (``assignMaxCluster``, cluster.cc:72-80): component MEMBERSHIP is identical,
 computed as a data-parallel fixed-point instead of a pointer chase, and it
 cannot blow the stack (docs/troubleshooting.rst:6-18).

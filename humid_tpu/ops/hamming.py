@@ -9,15 +9,15 @@ summed over uint32 lanes — each 2-bit base group contributes 1 iff the
 bases differ.  Two equivalent device paths are provided:
 
 * ``hamming_block_xor`` — VPU bitops (XOR + population_count), pure jnp.
-* ``hamming_block_mxu`` — one-hot bf16 matmul on the MXU: the number of
-  MATCHING bases of a pair is <onehot(a), onehot(b)>, so
-  dist = L - matches.  Wins when word length is large and the MXU is idle.
+* ``hamming_block_mxu`` — one-hot bf16 matmul on the tensor cores: the
+  number of MATCHING bases of a pair is <onehot(a), onehot(b)>, so
+  dist = L - matches.
 
 Both are exact integer computations.
 
 Role: these standalone block kernels are the REFERENCE ORACLES for the
-production paths (the fused tile scan in :mod:`.neighbors`, the Pallas
-sweep, and the runs-strategy host filter are all tested against them)
+production paths (the fused tile scan in :mod:`.neighbors` and the
+runs-strategy host filter are tested against them)
 and the building blocks of ``__graft_entry__``'s compile check; the
 pipeline itself drives :func:`humid_tpu.ops.find_neighbor_pairs`.
 """
@@ -90,8 +90,12 @@ def _onehot_bases(packed: jnp.ndarray, word_length: int) -> jnp.ndarray:
 @functools.partial(jax.jit, static_argnames=("cap", "word_length"))
 def hamming_block_mxu(rows, cols, row_off, col_off, max_dist, cap: int,
                       word_length: int):
-    """MXU variant of :func:`hamming_block_xor`: match counts via one-hot
-    bf16 matmul (exact for word_length <= 256)."""
+    """Matmul variant of :func:`hamming_block_xor`: match counts via a
+    one-hot bf16 matmul with float32 accumulation (tensor cores on a
+    GPU).  Exact, so the tolerance against the xor path is zero: every
+    operand is 0 or 1 and each dot is a sum of at most 4*word_length
+    ones, exactly representable for word_length <= 256; no operand is
+    float32, so TF32 never applies."""
     a = _onehot_bases(rows, word_length)
     b = _onehot_bases(cols, word_length)
     matches = jnp.dot(a, b.T, preferred_element_type=jnp.float32)

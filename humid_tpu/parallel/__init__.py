@@ -4,7 +4,6 @@ from .neighbors import (
     sharded_neighbor_pairs,
     sharded_neighbor_pairs_bucketed,
 )
-from .pallas_ring import sharded_neighbor_pairs_pallas_ring
 from .labelprop import (
     dedup_step,
     distributed_components,
@@ -19,7 +18,6 @@ __all__ = [
     "sharded_edit_pairs_shifted",
     "sharded_neighbor_pairs",
     "sharded_neighbor_pairs_bucketed",
-    "sharded_neighbor_pairs_pallas_ring",
     "distributed_components",
     "distributed_components_node_sharded",
     "dedup_step",

@@ -1,10 +1,12 @@
 """Device mesh helpers for the data-parallel dedup pipeline.
 
 The reference is a single-threaded binary with no distribution of any kind
-(SURVEY.md §2.5; no threads or MPI anywhere in /root/reference/src).  The
-TPU-native design scales over a 1-D ``'data'`` mesh axis: unique-word
-blocks are sharded across chips, the neighbour search rotates blocks
-around the ICI ring, and cluster labels converge via min-collectives.
+(SURVEY.md §2.5; no threads or MPI anywhere in the reference sources).
+This design scales over a 1-D ``'data'`` mesh axis: unique-word blocks
+are sharded across devices, the neighbour search rotates blocks around a
+``ppermute`` ring (NCCL over NVLink on GPUs), and cluster labels
+converge via min-collectives.  The mesh follows the algorithm: every
+device reaches every other at the same rate.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Multi-host orchestration for WGS-scale runs.
 
-The reference is strictly single-process (SURVEY.md §2.5).  The
-TPU-native design scales the read COUNT over hosts and chips:
+The reference is strictly single-process (SURVEY.md §2.5).  This design
+scales the read COUNT over processes and devices (one process per
+device: pin each process to its own card with CUDA_VISIBLE_DEVICES):
 
   host sharding   each host ingests a contiguous record range of every
                   input file (all files in lockstep, so tuples stay

@@ -294,11 +294,7 @@ def sharded_neighbor_pairs_bucketed(
     if u <= 1 or max_dist == 0:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
 
-    metric, tile = _resolve_metric(
-        "hamming", impl if impl in (None, "mxu", "xor") else None,
-        word_length, tile)
-    if metric == "hamming_pallas":  # id-masked scan is the XLA tile path
-        metric = "hamming_mxu"
+    metric, tile = _resolve_metric("hamming", impl, word_length, tile)
 
     # --- host prep: partitions -> runs -> shard assignment ---
     # Vectorized throughout: at WGS scale there are millions of runs, so

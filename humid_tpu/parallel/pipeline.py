@@ -740,12 +740,14 @@ def run_distributed(
     """
     from .._util import tune_malloc
     from ..phaselog import PhaseLog
+    from ..pipeline import log_device
     from ..stats import write_statistics
     from .multihost import default_barrier, global_unique_index
 
     tune_malloc()  # scoped here, not at package import (ADVICE r2)
     p = process_id if process_id is not None else jax.process_index()
     log = PhaseLog(log_name if p == 0 else os.devnull)
+    log_device(log)
 
     t = log.start("Reading data")
     st = _compute_sharded(

@@ -1,10 +1,10 @@
 """End-to-end deduplication pipeline.
 
-TPU-native rebuild of the reference's ``humid()`` driver (humid.cc:369-409):
+JAX rebuild of the reference's ``humid()`` driver (humid.cc:369-409):
 
   pass 1  read + pack words     (host, vectorized)     <- readData
-  unique  sort/unique counting  (host lexsort)         <- trie leaf counts
-  search  XOR+popcount blocks   (TPU, jax/pallas)      <- asymmetricHamming
+  unique  sort/unique counting  (host or device)       <- trie leaf counts
+  search  XOR+popcount blocks   (host or device, jax)  <- asymmetricHamming
   cluster exact traversal       (host/C++, iterative)  <- cluster.cc
   pass 2  write outputs         (host, streaming)      <- writeFiltered/
                                                           writeAnnotated
@@ -44,6 +44,19 @@ class PipelineResult:
     degree: np.ndarray | None = None        # [U] neighbour count
     sizes: np.ndarray | None = None         # [K] cluster sizes
     extra: dict = field(default_factory=dict)
+
+
+def log_device(log: PhaseLog) -> None:
+    """First phase line of a run: the backend and device kind that do
+    the work (backend initialization is what it times)."""
+    import time as _time
+
+    from ._backend import describe_device
+
+    t0 = _time.time()
+    dev = describe_device()
+    log.start(f"Using {dev}")
+    log.end(t0)
 
 
 def peek_umi_size(path: str) -> int:
@@ -309,7 +322,7 @@ def cluster_dispatch(counts, indptr, indices, *, maximum: bool,
                      pairs=None, device_threshold: int = 1 << 14):
     """Route clustering to the right engine (VERDICT r2 #7).
 
-    ``-x`` (maximum) clustering on a CO-LOCATED TPU backend with a large
+    ``-x`` (maximum) clustering on a CO-LOCATED GPU backend with a large
     unique table runs connected components on-device (label propagation,
     cluster/labelprop.py) and finalizes ids/size/maxCount/maxLeaf
     bit-exactly on host (cluster_max_from_components — only components
@@ -472,6 +485,7 @@ def run(
                 profile_dir="",
             )
     log = PhaseLog(log_name)
+    log_device(log)
     res = PipelineResult()
 
     # --- nucleotide budgeting (humid.cc:38-59) ---

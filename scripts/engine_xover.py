@@ -1,12 +1,12 @@
 """Measure the host-vs-device neighbour-engine crossover.
 
-Times find_neighbor_pairs(strategy="runs") (host OpenMP engine) against
-strategy="bucketed" impl="pallas" (device MXU engine) on realistic
-unique tables of increasing size, printing one JSON line per (u,
-engine).  The auto router's HUMID_TPU_DEVICE_MIN_UNIQUE default is
-calibrated from this data (see humid_tpu/_backend.py).
+Times find_neighbor_pairs engines on realistic unique tables of
+increasing size, printing one JSON line per (u, engine).  An engine is a
+strategy name, optionally with a Hamming impl: ``bucketed:xor``,
+``dense:mxu``.  Every line names the device it ran on.
 
-Usage (on the TPU host):  python scripts/engine_xover.py [--sizes ...]
+Usage:  python scripts/engine_xover.py [--sizes ...] \
+            [--engines runs,bucketed:xor,bucketed:mxu]
 """
 
 from __future__ import annotations
@@ -65,23 +65,22 @@ def main() -> int:
     args = p.parse_args()
 
     sys.path.insert(0, __file__.rsplit("/", 2)[0])
-    from bench import _probe_backend
-
-    _probe_backend()
-    import jax
-
+    from humid_tpu._backend import describe_device
+    from humid_tpu._util import configure_compile_cache
     from humid_tpu.ops.neighbors import find_neighbor_pairs
 
-    backend = jax.default_backend()
+    configure_compile_cache()
+    backend = describe_device()
     for u_req in args.sizes:
         whole = [e for e in args.engines.split(",")
                  if e in ("fused", "phasewise_device")]
         table = [e for e in args.engines.split(",") if e not in whole]
         uniq = gen_uniques(u_req, args.word_length)[:u_req]
         for eng in table:
-            kw = dict(strategy=eng, word_length=args.word_length)
-            if eng in ("bucketed", "dense"):
-                kw["impl"] = "pallas" if backend == "tpu" else None
+            strategy, _, impl = eng.partition(":")
+            kw = dict(strategy=strategy, word_length=args.word_length,
+                      impl=impl or None)
+            find_neighbor_pairs(uniq, args.m, **kw)  # compile
             best = None
             npairs = 0
             for _ in range(args.runs):
@@ -98,9 +97,9 @@ def main() -> int:
         if not whole:
             continue
         # Whole-pipeline engines: packed READS in, (tables + pairs) out.
-        # "phasewise_device" is the sum VERDICT r4 #1 wants the fused row
-        # beaten by: device unique (table down) + runs_device (table +
-        # orders back up, bitmaps down).
+        # "phasewise_device" is the sum the fused row must beat: device
+        # unique (table down) + runs_device (table + orders back up,
+        # bitmaps down).
         from humid_tpu.ops.unique import unique_words_device
         from humid_tpu.ops.runs_device import runs_device_pairs
         from humid_tpu.ops.fused import fused_probe

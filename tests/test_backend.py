@@ -1,6 +1,7 @@
 """Engine-selection tests: the auto strategy must route the hot phases
-to the device kernels on a co-located TPU and to the host engines
-elsewhere (VERDICT r2 #2), with env overrides still winning."""
+to the device engines on a local GPU (when calibration says they win)
+and to the host engines on the CPU backend, with env overrides still
+winning."""
 
 import numpy as np
 import pytest
@@ -38,7 +39,7 @@ def test_profile_cpu_backend_is_host():
     prof = B.backend_profile(refresh=True)
     assert prof["backend"] == "cpu"
     assert prof["colocated_device"] is False
-    assert prof["dispatch_s"] is None
+    assert prof["forced"] is None
 
 
 def test_auto_picks_runs_on_host_backend():
@@ -70,7 +71,7 @@ _MESH_WINS = dict(
 def _set_profile(monkeypatch, colocated, calib=None, forced=None):
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4,
+        {"backend": "cpu",
          "colocated_device": colocated, "forced": forced})
     monkeypatch.setitem(B.__dict__, "_CALIB", calib)
 
@@ -161,7 +162,7 @@ def test_engine_constants_disk_cache(monkeypatch, tmp_path):
     # and the comparator reads them
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4,
+        {"backend": "cpu",
          "colocated_device": True, "forced": None})
     assert B.use_device_engine("neighbors") is False
     assert B.use_device_engine("unique") is False
@@ -191,7 +192,7 @@ def test_calibration_measures_and_persists(monkeypatch, tmp_path):
 def test_auto_small_input_stays_dense(monkeypatch):
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4, "colocated_device": True})
+        {"backend": "cpu", "colocated_device": True})
     uniq = _rand_packed(256, seed=2)
     find_neighbor_pairs(uniq, 1, word_length=24, strategy="auto")
     assert nbmod.LAST_DECISION["strategy"] == "dense"
@@ -200,7 +201,7 @@ def test_auto_small_input_stays_dense(monkeypatch):
 def test_env_strategy_beats_profile(monkeypatch):
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4, "colocated_device": True})
+        {"backend": "cpu", "colocated_device": True})
     monkeypatch.setenv("HUMID_TPU_STRATEGY", "runs")
     uniq = _rand_packed(6000, seed=3)
     find_neighbor_pairs(uniq, 1, word_length=24, strategy="auto")

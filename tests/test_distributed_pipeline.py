@@ -237,7 +237,7 @@ def test_distributed_device_engine_broadcast(tmp_path, monkeypatch):
 
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4,
+        {"backend": "cpu",
          "colocated_device": True, "forced": None})
     monkeypatch.setitem(B.__dict__, "_CALIB", {
         "unique_host_ns": 10.0, "unique_device_ns": 100.0,

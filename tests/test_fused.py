@@ -18,6 +18,16 @@ sys.path.insert(0, os.path.dirname(__file__))
 from genfastq import gen_dataset  # noqa: E402
 
 
+@pytest.fixture(autouse=True)
+def _device_budget(monkeypatch):
+    """The CPU backend reports no device memory limit, so the fused
+    route would never be eligible here; these tests exercise the fused
+    programs themselves, so they give the device a 16 GiB budget."""
+    from humid_tpu.ops import fused as F
+
+    monkeypatch.setattr(F, "device_bytes_limit", lambda: 16 << 30)
+
+
 def _gen_packed(n, wl, dup=6, seed=0, mut_p=0.3):
     from humid_tpu import words as W
 
@@ -295,7 +305,7 @@ def test_use_fused_pipeline_gating(monkeypatch):
     # constant beats the best phase-wise alternative by >10%.
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4,
+        {"backend": "cpu",
          "colocated_device": True, "forced": None})
     base = {
         "unique_host_ns": 20.0, "unique_device_ns": 100.0,
@@ -318,7 +328,7 @@ def test_use_fused_pipeline_gating(monkeypatch):
     # Not colocated: never.
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-1,
+        {"backend": "cpu",
          "colocated_device": False, "forced": None})
     monkeypatch.setitem(B.__dict__, "_CALIB",
                         dict(base, pipeline_fused_ns=1.0))

@@ -3,8 +3,7 @@ single-core C++ baseline (baseline/humid_ref.cpp, reference semantics).
 
 Byte-identical dedup FastQ, annotated FastQ, and statistics files across
 UMI styles, file counts, mismatch settings, and clustering methods is the
-project's core correctness claim (BASELINE.md: "bit-exact duplicate
-sets").
+project's core correctness claim (bit-exact duplicate sets).
 """
 
 import os
@@ -91,24 +90,24 @@ def test_golden_outputs_match(case, humid_ref, tmp_path):
     files = [str(data / f"file{i}.{ext}") for i in range(n_files)]
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
 
     subprocess.run(
         [humid_ref, "-d", str(out_ref), "-s", "-a", *extra, *files],
         check=True, capture_output=True,
     )
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-a", "-l", os.devnull, *extra,
+    main(["-d", str(out_ours), "-s", "-a", "-l", os.devnull, *extra,
           *files])
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
         ref_bytes = _read(out_ref / name)
-        tpu_bytes = _read(out_tpu / name)
-        assert ref_bytes == tpu_bytes, f"{name} differs for {case}"
+        our_bytes = _read(out_ours / name)
+        assert ref_bytes == our_bytes, f"{name} differs for {case}"
 
 
 def _read(path):
@@ -136,20 +135,20 @@ def test_golden_midscale_production_paths(strategy, humid_ref, tmp_path,
     bench.gen_dataset(fq, 300_000, read_len=60, seed=97)
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", fq],
                    check=True, capture_output=True)
     if strategy != "auto":
         monkeypatch.setenv("HUMID_TPU_STRATEGY", strategy)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-l", os.devnull, fq])
+    main(["-d", str(out_ours), "-s", "-l", os.devnull, fq])
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 def test_golden_midscale_max_device_components(humid_ref, tmp_path,
@@ -166,23 +165,27 @@ def test_golden_midscale_max_device_components(humid_ref, tmp_path,
     bench.gen_dataset(fq, 300_000, read_len=60, seed=53)
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", "-x", fq],
                    check=True, capture_output=True)
     monkeypatch.setenv("HUMID_TPU_DEVICE_ENGINE", "1")
+    # The device route is forced; a calibration on the CPU backend would
+    # only time XLA:CPU, so skip it (the neighbour engine is then the
+    # device run sweeps).
+    monkeypatch.setenv("HUMID_TPU_CALIBRATION", "off")
     B._reset_profile_for_tests()
     try:
         from humid_tpu.cli import main
-        main(["-d", str(out_tpu), "-s", "-x", "-l", os.devnull, fq])
+        main(["-d", str(out_ours), "-s", "-x", "-l", os.devnull, fq])
     finally:
         B._reset_profile_for_tests()
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 def test_golden_midscale_calibrated_device_route(humid_ref, tmp_path,
@@ -201,14 +204,14 @@ def test_golden_midscale_calibrated_device_route(humid_ref, tmp_path,
     bench.gen_dataset(fq, 300_000, read_len=60, seed=31)
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", fq],
                    check=True, capture_output=True)
     monkeypatch.setitem(
         B.__dict__, "_PROFILE",
-        {"backend": "cpu", "dispatch_s": 1e-4,
+        {"backend": "cpu",
          "colocated_device": True, "forced": None})
     monkeypatch.setitem(B.__dict__, "_CALIB", {
         "unique_host_ns": 10.0, "unique_device_ns": 100.0,
@@ -218,15 +221,15 @@ def test_golden_midscale_calibrated_device_route(humid_ref, tmp_path,
     })
     try:
         from humid_tpu.cli import main
-        main(["-d", str(out_tpu), "-s", "-l", os.devnull, fq])
+        main(["-d", str(out_ours), "-s", "-l", os.devnull, fq])
     finally:
         B._reset_profile_for_tests()
     assert nbmod.LAST_DECISION["strategy"] == "runs_device"
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 @pytest.mark.parametrize("verify", ["host", "device"])
@@ -242,43 +245,48 @@ def test_golden_midscale_edit_shifted(verify, humid_ref, tmp_path,
     fq = str(tmp_path / "edit.fastq")
     bench.gen_dataset(fq, 20_000, read_len=60, seed=5)
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", "-e", fq],
                    check=True, capture_output=True)
     monkeypatch.setenv("HUMID_TPU_EDIT_VERIFY", verify)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-e", "-l", os.devnull, fq])
+    main(["-d", str(out_ours), "-s", "-e", "-l", os.devnull, fq])
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 def test_golden_log_structure(humid_ref, tmp_path):
-    """The -l log matches the reference's format line for line
-    (log.cc:4-15 phase lines + the nt-budget block, humid.cc:80-87),
-    with the variable (XmYs) timings normalized (VERDICT r1 item 7)."""
+    """After its first line, which names the device, the -l log matches
+    the reference's format line for line (log.cc:4-15 phase lines + the
+    nt-budget block, humid.cc:80-87), with the variable (XmYs) timings
+    normalized (VERDICT r1 item 7)."""
     import re
 
     gen_dataset(np.random.default_rng(55), str(tmp_path), n_reads=300,
                 n_files=2, umi_style="underscore")
     files = [str(tmp_path / f"file{i}.fastq") for i in range(2)]
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     log_ref = str(tmp_path / "ref.log")
-    log_tpu = str(tmp_path / "tpu.log")
+    log_ours = str(tmp_path / "ours.log")
     subprocess.run(
         [humid_ref, "-d", str(out_ref), "-s", "-a", "-l", log_ref,
          *files], check=True, capture_output=True)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-a", "-l", log_tpu, *files])
+    main(["-d", str(out_ours), "-s", "-a", "-l", log_ours, *files])
 
     norm = lambda s: re.sub(r"\(\d+m\d+s\)", "(XmYs)", s)
-    assert norm(open(log_ref).read()) == norm(open(log_tpu).read())
+    # Our first phase line names the device; the rest is the reference's.
+    first, rest = open(log_ours).read().split("\n", 1)
+    assert re.fullmatch(r"Using cpu \S.* x\d+\.\.\. done\. \(\d+m\d+s\)",
+                        first), first
+    assert norm(open(log_ref).read()) == norm(rest)
 
 
 def test_cli_multihost_requires_coordinator(tmp_path):
@@ -302,15 +310,15 @@ def test_golden_overlapped_unique_path(humid_ref, tmp_path, monkeypatch):
                 n_frac=0.2)
     files = [str(tmp_path / f"file{i}.fastq") for i in range(2)]
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", "-a", *files],
                    check=True, capture_output=True)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-a", "-l", os.devnull, *files])
+    main(["-d", str(out_ours), "-s", "-a", "-l", os.devnull, *files])
     for name in sorted(os.listdir(out_ref)):
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 def test_golden_degenerate_giant_run(humid_ref, tmp_path):
@@ -334,25 +342,25 @@ def test_golden_degenerate_giant_run(humid_ref, tmp_path):
                     + b"I" * 60 + b"\n")
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", fq],
                    check=True, capture_output=True)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-l", os.devnull, fq])
+    main(["-d", str(out_ours), "-s", "-l", os.devnull, fq])
 
     # The construction must actually exceed run_cap (one giant
     # equal-segment run), or this test silently stops covering the
     # big-run path.
-    with open(out_tpu / "stats.dat") as fh:
+    with open(out_ours / "stats.dat") as fh:
         stats = dict(l.strip().split(": ") for l in fh)
     assert int(stats["unique"]) > 2048
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 def test_golden_span_cache_writer(humid_ref, tmp_path, monkeypatch):
@@ -368,18 +376,18 @@ def test_golden_span_cache_writer(humid_ref, tmp_path, monkeypatch):
     open(files[1], "wb").write(raw[:-1])
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     subprocess.run([humid_ref, "-d", str(out_ref), "-s", "-a", *files],
                    check=True, capture_output=True)
     monkeypatch.setenv("HUMID_TPU_SPAN_CACHE", "1")
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-s", "-a", "-l", os.devnull, *files])
+    main(["-d", str(out_ours), "-s", "-a", "-l", os.devnull, *files])
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name
 
 
 @pytest.mark.parametrize("flags", [["-s"], ["-s", "-a", "-x"]],
@@ -397,18 +405,23 @@ def test_golden_midscale_fused(flags, humid_ref, tmp_path, monkeypatch):
     bench.gen_dataset(fq, 300_000, read_len=60, seed=71)
 
     out_ref = tmp_path / "ref"
-    out_tpu = tmp_path / "tpu"
+    out_ours = tmp_path / "ours"
     out_ref.mkdir()
-    out_tpu.mkdir()
+    out_ours.mkdir()
     ref_flags = [f for f in flags if f != "-a"] + (
         ["-a"] if "-a" in flags else [])
     subprocess.run([humid_ref, "-d", str(out_ref), *ref_flags, fq],
                    check=True, capture_output=True)
     monkeypatch.setenv("HUMID_TPU_FUSED", "1")
+    # The CPU backend reports no device memory limit; give it one so
+    # the fused route is eligible here.
+    from humid_tpu.ops import fused as F
+
+    monkeypatch.setattr(F, "device_bytes_limit", lambda: 16 << 30)
     from humid_tpu.cli import main
-    main(["-d", str(out_tpu), "-l", os.devnull, *flags, fq])
+    main(["-d", str(out_ours), "-l", os.devnull, *flags, fq])
 
     names = sorted(os.listdir(out_ref))
-    assert names == sorted(os.listdir(out_tpu))
+    assert names == sorted(os.listdir(out_ours))
     for name in names:
-        assert _read(out_ref / name) == _read(out_tpu / name), name
+        assert _read(out_ref / name) == _read(out_ours / name), name

@@ -46,7 +46,7 @@ def test_distributed_cli_matches_single_host(tmp_path, n_proc):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["HUMID_TPU_SCALING_REPORT"] = "1"
-    # The coordination service must not inherit any TPU plugin state.
+    # Each CPU process keeps its own single device.
     env.pop("XLA_FLAGS", None)
     procs = []
     for pid in range(n_proc):

@@ -98,48 +98,32 @@ def test_sharded_shifted_edit_match_single_device(n_dev, m):
 
 @pytest.mark.parametrize("n_dev", [1, 2, 3, 5, 8])
 @pytest.mark.parametrize("m", [1, 2])
-def test_pallas_rdma_ring_matches_single_device(n_dev, m):
-    """The kernel-level ICI ring (pltpu.make_async_remote_copy, RDMA of
-    block s+1 overlapped with compute on block s — SURVEY §2.5 /
-    VERDICT r3 #4) equals the single-device pair list (interpret mode
-    on the virtual mesh)."""
-    from humid_tpu.parallel import sharded_neighbor_pairs_pallas_ring
-
+def test_ppermute_ring_wide_words_match_single_device(n_dev, m):
+    """The ppermute ring (NCCL on GPUs) at -n 24 with a larger pool and
+    odd mesh widths equals the single-device pair list."""
     rng = np.random.default_rng(700 + 10 * n_dev + m)
     codes = _dataset(rng, 800, 24, pool=80)
     uniq, _, _, _ = unique_words(W.pack_words(codes))
     mesh = data_mesh(n_dev)
-    a1, b1 = sharded_neighbor_pairs_pallas_ring(
-        uniq, m, word_length=24, mesh=mesh, cap_row=4)
+    a1, b1 = sharded_neighbor_pairs(uniq, m, mesh=mesh, cap_row=4)
     a2, b2 = find_neighbor_pairs(uniq, m, strategy="dense",
                                  word_length=24, impl="xor")
     np.testing.assert_array_equal(a1, a2)
     np.testing.assert_array_equal(b1, b2)
 
 
-def test_pallas_rdma_ring_strategy_dispatch():
-    """find_neighbor_pairs(strategy='sharded', impl='pallas_ring')
-    routes through the RDMA ring kernel."""
+@pytest.mark.parametrize("kw", [{"strategy": "pallas_ring"},
+                                {"strategy": "sharded",
+                                 "impl": "pallas_ring"}],
+                         ids=["strategy", "sharded_impl"])
+def test_removed_ring_kernel_rejected(kw):
+    """The RDMA ring kernel is gone (ppermute is the ring): asking for it
+    is an error, never a silent fallback."""
     rng = np.random.default_rng(19)
     codes = _dataset(rng, 600, 24, pool=60)
     uniq, _, _, _ = unique_words(W.pack_words(codes))
-    a1, b1 = find_neighbor_pairs(uniq, 1, word_length=24,
-                                 strategy="sharded", impl="pallas_ring")
-    a2, b2 = find_neighbor_pairs(uniq, 1, word_length=24,
-                                 strategy="dense", impl="xor")
-    np.testing.assert_array_equal(a1, a2)
-    np.testing.assert_array_equal(b1, b2)
-
-
-def test_pallas_rdma_ring_block_cap():
-    from humid_tpu.parallel import sharded_neighbor_pairs_pallas_ring
-
-    rng = np.random.default_rng(3)
-    codes = _dataset(rng, 3000, 24, pool=2800)
-    uniq, _, _, _ = unique_words(W.pack_words(codes))
-    with pytest.raises(ValueError, match="block_cap"):
-        sharded_neighbor_pairs_pallas_ring(
-            uniq, 1, word_length=24, mesh=data_mesh(1), block_cap=1024)
+    with pytest.raises(ValueError):
+        find_neighbor_pairs(uniq, 1, word_length=24, **kw)
 
 
 def test_sharded_shifted_edit_join_cap_falls_back_to_ring():
@@ -398,76 +382,67 @@ def test_sharded_bucketed_degenerate_falls_back_to_ring():
 
 
 @pytest.mark.parametrize("n_dev", [2, 3])
-def test_pallas_rdma_ring_multichunk(n_dev):
-    """Blocks larger than one VMEM chunk stream through the HBM comm
-    slots (VERDICT r4 #2: the 4096-row cap is gone): a small chunk
-    forces the multi-(row,col)-chunk path, and the pair list still
-    equals the single-device dense scan."""
-    from humid_tpu.parallel import sharded_neighbor_pairs_pallas_ring
-
+def test_ppermute_ring_multitile_blocks(n_dev):
+    """Per-shard blocks spanning several tiles (a small tile forces the
+    multi-tile path) still give the single-device dense pair list."""
     rng = np.random.default_rng(61 + n_dev)
     codes = _dataset(rng, 2500, 24, pool=220)
     uniq, _, _, _ = unique_words(W.pack_words(codes))
     mesh = data_mesh(n_dev)
-    a1, b1 = sharded_neighbor_pairs_pallas_ring(
-        uniq, 1, word_length=24, mesh=mesh, cap_row=4, chunk=256)
+    a1, b1 = sharded_neighbor_pairs(uniq, 1, mesh=mesh, cap_row=4,
+                                    tile=256)
     a2, b2 = find_neighbor_pairs(uniq, 1, strategy="dense",
                                  word_length=24, impl="xor")
     np.testing.assert_array_equal(a1, a2)
     np.testing.assert_array_equal(b1, b2)
 
 
-def test_pallas_rdma_ring_block_beyond_old_cap():
-    """A per-shard block >4096 rows — the round-4 cap — runs through
-    the streamed ring and matches the dense scan (interpret, 2 dev)."""
-    from humid_tpu.parallel import sharded_neighbor_pairs_pallas_ring
-
+def test_ppermute_ring_blocks_beyond_one_tile():
+    """Random words (few matches) with per-shard blocks larger than the
+    default 2048-row tile, on 2 devices."""
     rng = np.random.default_rng(77)
     codes = rng.integers(0, 4, size=(9500, 24)).astype(np.uint8)
     uniq, _, _, _ = unique_words(W.pack_words(codes))
-    assert len(uniq) > 2 * 4096  # each of 2 shards holds > 4096 rows
-    mesh = data_mesh(2)
-    a1, b1 = sharded_neighbor_pairs_pallas_ring(
-        uniq, 1, word_length=24, mesh=mesh, cap_row=4, chunk=512)
-    a2, b2 = find_neighbor_pairs(uniq, 1, strategy="dense",
-                                 word_length=24, impl="xor")
+    assert len(uniq) > 2 * 2048
+    a1, b1 = sharded_neighbor_pairs(uniq, 1, mesh=data_mesh(2),
+                                    cap_row=4)
+    a2, b2 = find_neighbor_pairs(uniq, 1, strategy="runs",
+                                 word_length=24)
     np.testing.assert_array_equal(a1, a2)
     np.testing.assert_array_equal(b1, b2)
 
 
-def test_pallas_ring_cap_row_ceiling():
-    """A row with more matches than the ring's VMEM top-K ceiling
-    raises RingLimitExceeded (the caller falls back to XLA tiles)
-    instead of growing the unrolled merge unboundedly (review r5)."""
-    from humid_tpu.parallel.pallas_ring import (
-        RingLimitExceeded, sharded_neighbor_pairs_pallas_ring)
-
+def test_ppermute_ring_cap_row_growth():
+    """A row with hundreds of matches at m=2 outgrows the starting
+    per-row cap: the ring's retry loop grows cap_row and stays exact."""
     rng = np.random.default_rng(90)
     base = rng.integers(0, 4, 24).astype(np.uint8)
     codes = np.tile(base, (1500, 1))
-    # Hundreds of distinct double-substitution neighbours of one base
-    # word (single subs max out at 72): at m=2 the base row's match
-    # count far exceeds _RING_MAX_CAP_ROW.
     p1 = rng.integers(0, 12, 1499)
     p2 = rng.integers(12, 24, 1499)
     rows = np.arange(1, 1500)
     codes[rows, p1] = (base[p1] + 1 + rng.integers(0, 3, 1499)) % 4
     codes[rows, p2] = (base[p2] + 1 + rng.integers(0, 3, 1499)) % 4
     uniq, _, _, _ = unique_words(W.pack_words(codes))
-    with pytest.raises(RingLimitExceeded):
-        sharded_neighbor_pairs_pallas_ring(
-            uniq, 2, word_length=24, mesh=data_mesh(1), cap_row=4)
+    a1, b1 = sharded_neighbor_pairs(uniq, 2, mesh=data_mesh(2),
+                                    cap_row=4)
+    a2, b2 = find_neighbor_pairs(uniq, 2, strategy="dense",
+                                 word_length=24, impl="xor")
+    assert np.bincount(np.concatenate([a2, b2])).max() > 4
+    np.testing.assert_array_equal(a1, a2)
+    np.testing.assert_array_equal(b1, b2)
 
 
-def test_pallas_ring_block_limit_typed():
-    """The block sanity cap raises the typed RingLimitExceeded (a
-    ValueError subclass, so the old block_cap contract holds)."""
-    from humid_tpu.parallel.pallas_ring import (
-        RingLimitExceeded, sharded_neighbor_pairs_pallas_ring)
-
+def test_sharded_bucketed_mxu_impl_matches():
+    """The bucketed mesh search through the one-hot matmul impl gives
+    the same pair list as the xor impl."""
     rng = np.random.default_rng(91)
-    codes = rng.integers(0, 4, size=(3000, 24)).astype(np.uint8)
+    codes = _dataset(rng, 3000, 24, pool=300)
     uniq, _, _, _ = unique_words(W.pack_words(codes))
-    with pytest.raises(RingLimitExceeded):
-        sharded_neighbor_pairs_pallas_ring(
-            uniq, 1, word_length=24, mesh=data_mesh(1), block_cap=1024)
+    mesh = data_mesh(3)
+    a1, b1 = sharded_neighbor_pairs_bucketed(uniq, 1, word_length=24,
+                                             mesh=mesh, impl="mxu")
+    a2, b2 = sharded_neighbor_pairs_bucketed(uniq, 1, word_length=24,
+                                             mesh=mesh, impl="xor")
+    np.testing.assert_array_equal(a1, a2)
+    np.testing.assert_array_equal(b1, b2)

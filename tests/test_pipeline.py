@@ -258,21 +258,21 @@ def test_pipeline_reports_phase_timings(tmp_path):
     assert all(v >= 0 for v in timings.values())
 
 
-def test_pipeline_pallas_path_outputs(tmp_path):
-    """End-to-end run forced through the Pallas kernel (interpreted on
-    CPU) produces byte-identical outputs to the default path."""
+def test_pipeline_mxu_path_outputs(tmp_path):
+    """End-to-end run forced through the dense one-hot matmul tile scan
+    produces byte-identical outputs to the default path."""
     import genfastq
 
     genfastq.gen_dataset(np.random.default_rng(33), str(tmp_path),
                          n_reads=400, n_files=1, umi_style="none")
     files = [str(tmp_path / "file0.fastq")]
     d1 = tmp_path / "out_default"
-    d2 = tmp_path / "out_pallas"
+    d2 = tmp_path / "out_mxu"
     run(files, dir_name=str(d1), log_name=os.devnull, run_stats=True,
         write_annotated=True)
     run(files, dir_name=str(d2), log_name=os.devnull, run_stats=True,
         write_annotated=True,
-        neighbor_opts={"impl": "pallas", "strategy": "dense"})
+        neighbor_opts={"impl": "mxu", "strategy": "dense"})
     for f in sorted(os.listdir(d1)):
         assert (d1 / f).read_bytes() == (d2 / f).read_bytes(), f
 
